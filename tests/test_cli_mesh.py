@@ -1,4 +1,4 @@
-"""The production CLI train path under a data-parallel mesh (VERDICT r1 #1):
+"""The production CLI train path under a data-parallel mesh:
 `train --mesh 8` must go through fit()'s streaming path (host_shard +
 stream_batches + batch-sharded device_put) and produce the same history as
 the single-device resident path, within the documented Adam sign-fragility
@@ -60,12 +60,19 @@ def _run(root, out, mesh):
 
 
 def _load_ckpt_tree(out):
+    """{checkpoint dir name: {state.npz key: array}}, params and batch_stats
+    keys grouped under their top-level field."""
     import glob
-    import orbax.checkpoint as ocp
     dirs = sorted(glob.glob(os.path.join(str(out), "checkpoints", "cnn8",
                                          "best_epoch*")))
-    return {os.path.basename(d): ocp.StandardCheckpointer().restore(d)
-            for d in dirs}
+    trees = {}
+    for d in dirs:
+        with np.load(os.path.join(d, "state.npz")) as z:
+            trees[os.path.basename(d)] = {
+                field: {k: z[k] for k in sorted(z.files)
+                        if k.startswith(f".{field}")}
+                for field in ("params", "batch_stats")}
+    return trees
 
 
 def _flat(tree) -> np.ndarray:
@@ -86,7 +93,7 @@ def test_cli_train_mesh_matches_single(synth_root, tmp_path):
         assert r1["train_acc"] == r8["train_acc"]
         assert r1["lr"] == r8["lr"]
 
-    # Final-state equivalence (VERDICT r2 #7): both layouts must have saved
+    # Final-state equivalence: both layouts must have saved
     # checkpoints at the SAME epochs (identical improvement bookkeeping), and
     # the final checkpoint's params/batch_stats must agree elementwise — a
     # seeded cross-replica reduction bug of one batch-norm stat fails here,

@@ -1,4 +1,4 @@
-"""Oracle-independence probes (VERDICT r2 #8).
+"""Oracle-independence probes.
 
 Every parity test elsewhere compares the device graph against the NumPy
 oracle (baseline/dsp_np.py) — but the device path shares trace-time
@@ -230,7 +230,7 @@ def test_cqt_tone_lands_on_its_bin():
 
 
 # ------------------------- closed-form probes: delta / LPC / rhythm
-# (VERDICT r3 #6 — the three channels that previously rested solely on
+# (the three channels that previously rested solely on
 # oracle comparison get analytic anchors the oracle never touches)
 
 def test_savgol_delta_exact_on_polynomials():

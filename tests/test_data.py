@@ -3,7 +3,6 @@ streaming loader."""
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
 
 from tpu_breath.config import FeatureSpec
@@ -26,16 +25,30 @@ def test_test_wav_name():
     assert ds.test_wav_name("a") == "a.wav"
 
 
-def test_split_is_sklearn_seed42():
-    df = pd.DataFrame({"ID": [f"c{i}" for i in range(100)],
-                       "Target": ["E", "I"] * 50})
-    tr, va = ds.split_train_val(df)
-    assert len(tr) == 80 and len(va) == 20
+def _check_split_against_sklearn(n):
+    table = {"ID": [f"c{i}" for i in range(n)],
+             "Target": ["E", "I"] * (n // 2) + ["E"] * (n % 2)}
+    tr, va = ds.split_train_val(table)
     from sklearn.model_selection import train_test_split
-    tr2, va2 = train_test_split(df, test_size=0.20, shuffle=True,
+    tr2, va2 = train_test_split(table["ID"], test_size=0.20, shuffle=True,
                                 random_state=42)
-    assert list(tr["ID"]) == list(tr2["ID"])
-    assert list(va["ID"]) == list(va2["ID"])
+    assert tr["ID"] == list(tr2) and va["ID"] == list(va2)
+    assert len(va["ID"]) == -(-n // 5)
+    by_id = dict(zip(table["ID"], table["Target"]))
+    assert tr["Target"] == [by_id[i] for i in tr["ID"]]
+    return tr, va
+
+
+def test_split_is_sklearn_seed42():
+    tr, va = _check_split_against_sklearn(100)
+    assert len(tr["ID"]) == 80 and len(va["ID"]) == 20
+
+
+@pytest.mark.parametrize("n", [59, 1280, 7])
+def test_split_matches_sklearn_uneven_sizes(n):
+    """The numpy split reproduces sklearn's train_test_split row for row,
+    also where 0.2 * n is not whole (the ceil goes to val)."""
+    _check_split_against_sklearn(n)
 
 
 def test_labels():
@@ -125,3 +138,59 @@ def test_host_shard_partitions_everything():
         s = loader.host_shard(n, host_id=h, host_count=4)
         covered.extend(range(*s.indices(n)))
     assert sorted(covered) == list(range(n))
+
+
+def _synth(root, seed=0):
+    from tpu_breath.data import synth
+    synth.write_competition_input(str(root), n_train=8, n_test=4, seed=seed)
+
+
+def _tree_bytes(root) -> dict:
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def test_synth_input_is_deterministic(tmp_path):
+    """The same seed writes the same bytes; another seed other clips. The
+    layout is the one the CLI reads: csvs plus one wav per row."""
+    _synth(tmp_path / "a")
+    _synth(tmp_path / "b")
+    _synth(tmp_path / "c", seed=1)
+    a, b, c = (_tree_bytes(tmp_path / d) for d in "abc")
+    assert a == b
+    assert a.keys() == c.keys() and a != c
+    train = ds.read_table(str(tmp_path / "a" / "train.csv"))
+    test = ds.read_table(str(tmp_path / "a" / "test.csv"))
+    assert len(train["ID"]) == 8 and set(train["Target"]) == {"E", "I"}
+    for i in train["ID"]:
+        assert os.path.join("train", ds.train_wav_name(i)) in a
+    for i in test["ID"]:
+        assert os.path.join("test", ds.test_wav_name(i)) in a
+
+
+def test_synth_wavs_decode_same_native_and_python(tmp_path):
+    _synth(tmp_path)
+    paths = sorted(str(p) for p in (tmp_path / "train").glob("*.wav"))
+    batch = wav_io.load_wav_batch(paths, SPEC.expected_len)
+    ref = np.stack([wav_io.load_wav(p, SPEC.expected_len) for p in paths])
+    np.testing.assert_array_equal(batch, ref)
+    assert batch.shape == (8, 16_000) and np.all(np.abs(batch) <= 1.0)
+    assert np.all(np.std(batch, axis=1) > 1e-3)
+
+
+def test_synth_labels_are_learnable():
+    """Exhale clips sit lower in frequency than inhale clips on average, so
+    the label can be learned from the features."""
+    from tpu_breath.data import synth
+    labels = ["E", "I"] * 32
+    y = synth.synth_clips(labels, np.random.default_rng(0)).astype(np.float64)
+    mag = np.abs(np.fft.rfft(y, axis=-1))
+    freqs = np.fft.rfftfreq(y.shape[-1], 1 / synth.SR)
+    centroid = (mag * freqs).sum(-1) / mag.sum(-1)
+    is_e = np.array(labels) == "E"
+    assert centroid[is_e].mean() + 200 < centroid[~is_e].mean()

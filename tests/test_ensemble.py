@@ -33,23 +33,18 @@ def test_weighted_ensemble_blends_models(tmp_path):
     """Two trained-for-zero-steps models with known weights: the ensemble
     probability must be the weighted mean of the individual sigmoids."""
     import jax
-    import jax.numpy as jnp
     from tpu_breath.config import TrainCfg
     from tpu_breath.models import registry
-    from tpu_breath.augment import Batch
     from tpu_breath.train.loop import create_state
     from tpu_breath.train import checkpoint as ckpt_lib
 
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((6, 9, 16, 8)).astype(np.float32)
     scals = rng.standard_normal((6, 36)).astype(np.float32)
-    sample = Batch(jnp.asarray(feats[:2]), jnp.asarray(scals[:2]),
-                   jnp.zeros(2, jnp.float32))
     ckpts, archs = [], []
     for i, arch in enumerate(["cnn8", "cnn8"]):
         model = registry.build(arch, 36)
-        state, _, _ = create_state(model, jax.random.PRNGKey(i), TrainCfg(),
-                                   1, sample)
+        state, _, _ = create_state(model, jax.random.PRNGKey(i), TrainCfg(), 1)
         path = ckpt_lib.save(str(tmp_path / f"m{i}"), state, 1,
                              {"val_acc": 0.7 + 0.05 * i})
         ckpts.append(path)
@@ -60,7 +55,7 @@ def test_weighted_ensemble_blends_models(tmp_path):
     w = ensemble.softmax_weights([0.7, 0.75])
     expect = np.zeros(6)
     for path, arch, wi in zip(ckpts, archs, w):
-        model, state = ensemble.load_model_state(path, arch, 36, sample)
+        model, state = ensemble.load_model_state(path, arch, 36)
         expect += wi * ensemble.predict_probs(model, state, feats, scals,
                                               batch_size=6)
     np.testing.assert_allclose(probs, expect, atol=1e-7)

@@ -5,7 +5,6 @@ import jax.numpy as jnp
 
 from tpu_breath.config import TrainCfg
 from tpu_breath.models.cnn8 import CNN8
-from tpu_breath.augment import Batch
 from tpu_breath.train.loop import (create_state, make_epoch_runner,
                                    make_train_step)
 
@@ -18,17 +17,16 @@ def test_epoch_scan_matches_per_step():
     l = jnp.asarray((np.arange(n) % 2).astype(np.float32))
     cfg = TrainCfg(num_epochs=2, batch_size=b, warmup_epochs=0)  # aug ON
     model = CNN8(num_scalar_features=36, dropout_rate=0.0, dtype=jnp.float32)
-    sample = Batch(f[:2], s[:2], l[:2])
     idx = jnp.arange(n).reshape(2, b)
     keys = jax.random.split(jax.random.PRNGKey(2), 2)
     use_aug = jnp.asarray(True)
 
-    state_a, tx_a, _ = create_state(model, jax.random.PRNGKey(0), cfg, 2, sample)
+    state_a, tx_a, _ = create_state(model, jax.random.PRNGKey(0), cfg, 2)
     runner = make_epoch_runner(model, tx_a, cfg)
     st_a, stats_a = runner(state_a, f, s, l, idx, keys, use_aug)
     stats_a = jax.device_get(stats_a)
 
-    state_b, tx_b, _ = create_state(model, jax.random.PRNGKey(0), cfg, 2, sample)
+    state_b, tx_b, _ = create_state(model, jax.random.PRNGKey(0), cfg, 2)
     step = make_train_step(model, tx_b, cfg)
     st_b = state_b
     losses, accs = [], []

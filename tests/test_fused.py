@@ -22,16 +22,15 @@ def test_fused_step_matches_cached_features(real_clips):
                  dtype=jnp.float32)
 
     feats, scals = jax.jit(lambda w: extract_features(w, SPEC))(wavs)
-    sample = Batch(feats[:2], scals[:2], labels[:2])
     idx = jnp.arange(b)
     key = jax.random.PRNGKey(0)
 
-    state_c, tx, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1, sample)
+    state_c, tx, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1)
     step_cached = make_train_step(model, tx, cfg)
     _, stats_c = step_cached(state_c, feats, scals, labels, idx, key,
                              jnp.asarray(False))
 
-    state_f, tx2, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1, sample)
+    state_f, tx2, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1)
     step_fused = make_train_step(model, tx2, cfg, fused_spec=SPEC)
     dummy_scals = jnp.zeros((b, 0), jnp.float32)
     _, stats_f = step_fused(state_f, wavs, dummy_scals, labels, idx, key,
@@ -90,18 +89,16 @@ def test_fused_step_mesh_matches_single(real_clips):
     cfg = TrainCfg(num_epochs=1, batch_size=b, warmup_epochs=99)  # aug off
     model = CNN8(num_scalar_features=SPEC.n_scalars, dropout_rate=0.0,
                  dtype=jnp.float32)
-    feats, scals = jax.jit(lambda w: extract_features(w, SPEC))(wavs)
-    sample = Batch(feats[:2], scals[:2], labels[:2])
     key = jax.random.PRNGKey(0)
     dummy_scals = jnp.zeros((b, 0), jnp.float32)
 
-    state1, tx1, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1, sample)
+    state1, tx1, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1)
     step1 = make_train_step(model, tx1, cfg, fused_spec=SPEC)
     new1, stats1 = step1(state1, wavs, dummy_scals, labels, jnp.arange(b),
                          key, jnp.asarray(False))
 
     mesh = mesh_lib.make_mesh(jax.devices()[:4])
-    state4, tx4, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1, sample)
+    state4, tx4, _ = create_state(model, jax.random.PRNGKey(1), cfg, 1)
     state4 = jax.device_put(state4, mesh_lib.replicated(mesh))
     step4 = make_train_step_batched(model, tx4, cfg, mesh, fused_spec=SPEC)
     batch = Batch(jax.device_put(wavs, mesh_lib.data_sharding(mesh)), None,

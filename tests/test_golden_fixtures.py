@@ -7,7 +7,7 @@ import os
 
 import numpy as np
 import jax
-import jax.numpy as jnp
+import pytest
 
 from tpu_breath.config import FeatureSpec
 from tpu_breath.features import extract_features
@@ -22,7 +22,7 @@ def test_fixtures_exist():
     assert len(FIXTURES) >= 2
 
 
-def test_jax_pipeline_matches_golden():
+def _check_pipeline(device):
     wavs, stacks, scalars = [], [], []
     for path in FIXTURES:
         d = np.load(path)
@@ -31,7 +31,7 @@ def test_jax_pipeline_matches_golden():
         scalars.append(d["scalars"])
     wavs = np.stack(wavs)
     feats, scals = jax.jit(lambda w: extract_features(w, SPEC))(
-        jnp.asarray(wavs))
+        jax.device_put(wavs, device))
     feats, scals = np.asarray(feats), np.asarray(scals)
     for i, path in enumerate(FIXTURES):
         d = np.abs(feats[i] - stacks[i])
@@ -39,6 +39,15 @@ def test_jax_pipeline_matches_golden():
         rel = np.abs(scals[i] - scalars[i]) / np.maximum(
             np.abs(scalars[i]), 1e-2)
         assert rel.max() < 2e-2, (path, rel.max())
+
+
+def test_jax_pipeline_matches_golden(cpu_device):
+    _check_pipeline(cpu_device)
+
+
+@pytest.mark.gpu
+def test_jax_pipeline_matches_golden_on_gpu(gpu_device):
+    _check_pipeline(gpu_device)
 
 
 def test_oracle_matches_golden():

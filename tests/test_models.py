@@ -15,9 +15,7 @@ from tpu_breath.models import registry
 def _init(model, b=4):
     feats = jnp.zeros((b, 9, 128, 63), jnp.float32)
     scals = jnp.zeros((b, 36), jnp.float32)
-    variables = model.init({"params": jax.random.PRNGKey(0),
-                            "dropout": jax.random.PRNGKey(1)},
-                           feats, scals, train=True)
+    variables = model.init(jax.random.PRNGKey(0))
     return variables, feats, scals
 
 
@@ -32,7 +30,7 @@ def test_cnn8_shape_and_params():
     # reference quotes ~2.43M with 39 scalars (README.md:133); 36 gives
     # marginally fewer
     assert 2.3e6 < n < 2.5e6, n
-    out = jax.jit(lambda v, f, s: model.apply(v, f, s, train=False))(
+    out, _ = jax.jit(lambda v, f, s: model.apply(v, f, s, train=False))(
         variables, feats, scals)
     assert out.shape == (4,)
     assert out.dtype == jnp.float32
@@ -44,7 +42,7 @@ def test_vgg_shape_and_params():
     n = _n_params(variables["params"])
     # reference quotes ~8.15M (paper/sections/method.tex:91)
     assert 7.9e6 < n < 8.4e6, n
-    out = jax.jit(lambda v, f, s: model.apply(v, f, s, train=False))(
+    out, _ = jax.jit(lambda v, f, s: model.apply(v, f, s, train=False))(
         variables, feats, scals)
     assert out.shape == (4,)
     assert np.all(np.isfinite(np.asarray(out)))
@@ -56,15 +54,17 @@ def test_batch_stats_update_only_in_train_mode():
     rng = np.random.default_rng(0)
     feats = jnp.asarray(rng.standard_normal(feats.shape), jnp.float32)
 
-    @jax.jit
-    def train_apply(v, f, s):
-        return model.apply(v, f, s, train=True, mutable=["batch_stats"],
-                           rngs={"dropout": jax.random.PRNGKey(2)})
+    def apply(v, f, s, train):
+        return model.apply(v, f, s, train=train, key=jax.random.PRNGKey(2))
 
-    _, mut = train_apply(variables, feats, scals)
+    apply = jax.jit(apply, static_argnums=3)
     before = jax.tree.leaves(variables["batch_stats"])
-    after = jax.tree.leaves(mut["batch_stats"])
+    _, stats = apply(variables, feats, scals, True)
+    after = jax.tree.leaves(stats)
     assert any(not np.allclose(b, a) for b, a in zip(before, after))
+    _, stats = apply(variables, feats, scals, False)
+    for b, a in zip(before, jax.tree.leaves(stats)):
+        np.testing.assert_array_equal(b, a)
 
 
 def test_eval_is_deterministic_train_is_stochastic():
@@ -73,13 +73,13 @@ def test_eval_is_deterministic_train_is_stochastic():
     rng = np.random.default_rng(1)
     feats = jnp.asarray(rng.standard_normal(feats.shape), jnp.float32)
 
-    ev = jax.jit(lambda v, f, s: model.apply(v, f, s, train=False))
+    ev = jax.jit(lambda v, f, s: model.apply(v, f, s, train=False)[0])
     a = np.asarray(ev(variables, feats, scals))
     b = np.asarray(ev(variables, feats, scals))
     np.testing.assert_array_equal(a, b)
 
-    tr = jax.jit(lambda v, f, s, k: model.apply(
-        v, f, s, train=True, mutable=["batch_stats"], rngs={"dropout": k})[0])
+    tr = jax.jit(lambda v, f, s, k: model.apply(v, f, s, train=True,
+                                                key=k)[0])
     x = np.asarray(tr(variables, feats, scals, jax.random.PRNGKey(3)))
     y = np.asarray(tr(variables, feats, scals, jax.random.PRNGKey(4)))
     assert not np.array_equal(x, y)

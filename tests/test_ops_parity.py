@@ -328,7 +328,7 @@ def test_find_peaks_stats(real_clips):
 
 
 def test_find_peaks_plateaus(rng):
-    """Adversarial plateau/quantization fixtures vs scipy (VERDICT r1 #8).
+    """Adversarial plateau/quantization fixtures vs scipy.
 
     scipy treats an equal-value run as ONE peak at its floor-midpoint iff
     both run-adjacent samples are strictly lower (_local_maxima_1d); the

@@ -30,7 +30,6 @@ def test_dp_matches_single_device():
     """The sharded train step must compute the same loss as single-device."""
     from tpu_breath.config import TrainCfg
     from tpu_breath.models.cnn8 import CNN8
-    from tpu_breath.augment import Batch
     from tpu_breath.train.loop import create_state, make_train_step
 
     rng = np.random.default_rng(0)
@@ -43,11 +42,9 @@ def test_dp_matches_single_device():
     # can flip sign between reduction orders and Adam turns a sign flip into a
     # full lr step — layout equivalence is only meaningfully testable in f32
     model = CNN8(num_scalar_features=36, dropout_rate=0.0, dtype=jnp.float32)
-    sample = Batch(feats[:2], scals[:2], labels[:2])
 
     def run(mesh):
-        state, tx, _ = create_state(model, jax.random.PRNGKey(0), cfg,
-                                    steps_per_epoch=1, sample_batch=sample)
+        state, tx, _ = create_state(model, jax.random.PRNGKey(0), cfg, steps_per_epoch=1)
         if mesh is not None:
             state = jax.device_put(state, mesh_lib.replicated(mesh))
         step = make_train_step(model, tx, cfg, mesh)

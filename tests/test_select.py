@@ -1,8 +1,7 @@
 """Radix select (ops/select.py): exact order statistics at every descent
 width, against np.sort/np.percentile/np.median ground truth. The wider
-descents (bits>1) are bit-identical alternatives kept with their measured
-negative on-chip verdict (tools/select_ab.py: the fused one-hot histogram
-does not beat the 32-step binary descent on this backend)."""
+descents (bits>1) are bit-identical alternatives to the 32-step binary
+descent."""
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -34,7 +34,6 @@ def test_serve_from_wav_matches_cached_ensemble(tmp_path):
     same clips and checkpoints."""
     import jax
     import jax.numpy as jnp
-    from tpu_breath.augment import Batch
     from tpu_breath.data import wav as wav_io
     from tpu_breath.features import extract_features
     from tpu_breath.models import registry
@@ -49,14 +48,10 @@ def test_serve_from_wav_matches_cached_ensemble(tmp_path):
         paths.append(str(p))
     wavs = wav_io.load_wav_batch(paths, SPEC.expected_len)
 
-    f0, s0 = jax.jit(lambda w: extract_features(w, SPEC))(
-        jnp.asarray(wavs[:1]))
-    sample = Batch(f0, s0, jnp.zeros(1, jnp.float32))
     ckpts, archs, scores = [], [], []
     for i in range(2):
         model = registry.build("cnn8", SPEC.n_scalars)
-        state, _, _ = create_state(model, jax.random.PRNGKey(i), TrainCfg(),
-                                   1, sample)
+        state, _, _ = create_state(model, jax.random.PRNGKey(i), TrainCfg(), 1)
         ckpts.append(ckpt_lib.save(str(tmp_path / f"m{i}"), state, 1,
                                    {"val_acc": 0.7 + 0.05 * i}))
         archs.append("cnn8")

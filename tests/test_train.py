@@ -165,7 +165,7 @@ def test_resume_matches_uninterrupted(toy_data, tmp_path):
     """Kill a run mid-training; the resumed run's history must equal the
     uninterrupted run's, epoch for epoch — requires stateless per-epoch RNG
     (fold_in/seeded-per-epoch) and early-stop bookkeeping restored from the
-    checkpoint (VERDICT r2 #5; reference early-stop semantics
+    checkpoint (reference early-stop semantics
     src/train.py:142-171)."""
     feats, scals, labels = toy_data
     cfg = TrainCfg(num_epochs=10, base_lr=1e-3, batch_size=16,
@@ -221,3 +221,36 @@ def test_latest_checkpoint_skips_interrupted_save(tmp_path):
     # only partial dirs -> behave like no checkpoint at all
     (good / "metadata.json").unlink()
     assert ckpt_lib.latest_checkpoint(str(tmp_path)) is None
+
+
+def test_checkpoint_npz_roundtrips_full_state(tmp_path):
+    """save -> restore reproduces every leaf of the TrainState, optimizer
+    moments and step included, with its dtype and the state's structure;
+    a checkpoint of another shape is refused."""
+    from tpu_breath.train import checkpoint as ckpt_lib
+
+    cfg = TrainCfg(num_epochs=1, batch_size=4, warmup_epochs=99)
+    model = CNN8(num_scalar_features=36, dropout_rate=0.0)
+    state, tx, _ = loop.create_state(model, jax.random.PRNGKey(0), cfg, 1)
+    batch = _toy_batch(4)
+    state, _ = loop.make_train_step(model, tx, cfg)(
+        state, batch.features, batch.scalars, batch.labels, jnp.arange(4),
+        jax.random.PRNGKey(1), jnp.asarray(False))
+    path = ckpt_lib.save(str(tmp_path), state, 1, {"val_acc": 0.5})
+    fresh, _, _ = loop.create_state(model, jax.random.PRNGKey(9), cfg, 1)
+    restored = ckpt_lib.restore(path, fresh)
+
+    assert (jax.tree_util.tree_structure(restored)
+            == jax.tree_util.tree_structure(state))
+    assert int(restored.step) == 1
+    for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+        assert np.asarray(a).dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), b)
+    mu = restored.opt_state[1][0].mu  # clip -> adamw's scale_by_adam state
+    assert any(np.any(x != 0) for x in jax.tree.leaves(mu))
+    assert ckpt_lib.restore_latest(str(tmp_path), fresh)[1] == 1
+
+    other = CNN8(num_scalar_features=12, dropout_rate=0.0)
+    wrong, _, _ = loop.create_state(other, jax.random.PRNGKey(0), cfg, 1)
+    with pytest.raises(ValueError, match="expected"):
+        ckpt_lib.restore(path, wrong)

@@ -1,5 +1,5 @@
 """Dataset-level quantification of the two documented oracle deviations
-(VERDICT r3 #7; PARITY.md §5/§5b):
+(PARITY.md §5/§5b):
 
 (a) Resampler numerics inside the CQT: librosa 0.10's default soxr_hq 2:1
     decimator vs the bit-matched res_type='polyphase' shipped here. soxr is

@@ -1,4 +1,4 @@
-"""Validation-split metrics of the flagship weighted ensemble (VERDICT r3 #5).
+"""Validation-split metrics of the flagship weighted ensemble.
 
 The reference's headline is the ENSEMBLE (paper/sections/results.tex:24), but
 its Kaggle holdout is unmeasurable offline and it never reports ensemble
@@ -38,11 +38,11 @@ def main() -> None:
     from tpu_breath.train.metrics import binary_metrics
 
     paths = Paths(root=args.root)
-    train_df, _ = ds.load_frames(paths)
+    train, _ = ds.load_tables(paths)
     store = ds.FeatureStore.load_cache(paths.feature_cache, mmap=False)
-    _, va_df = ds.split_train_val(train_df)
-    va = store.subset(list(va_df["ID"]))
-    y_va = np.asarray(ds.labels_from_targets(va_df["Target"]), np.float32)
+    _, va_rows = ds.split_train_val(train)
+    va = store.subset(va_rows["ID"])
+    y_va = np.asarray(ds.labels_from_targets(va_rows["Target"]), np.float32)
 
     archs, ckpts, scores = [], [], []
     for spec in args.ckpt:
@@ -57,12 +57,8 @@ def main() -> None:
     out = {"val_n": int(len(y_va)), "members": {}}
     n_scal = va.scalars.shape[1]
     per_model = []
-    import jax.numpy as jnp
-    from tpu_breath.augment import Batch
-    sample = Batch(jnp.asarray(va.features[:2]), jnp.asarray(va.scalars[:2]),
-                   jnp.zeros(2, jnp.float32))
     for arch, path, sc in zip(archs, ckpts, scores):
-        model, state = ensemble.load_model_state(path, arch, n_scal, sample)
+        model, state = ensemble.load_model_state(path, arch, n_scal)
         probs = ensemble.predict_probs(model, state, va.features, va.scalars)
         per_model.append(probs)
         m = binary_metrics(probs, y_va)

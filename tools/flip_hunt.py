@@ -22,16 +22,12 @@ from tpu_breath.ops import spectral as sp_ops, chroma as ch_ops
 
 spec = DEFAULT_FEATURES
 paths = Paths(root="input")
-train_df, test_df = ds.load_frames(paths)
-ids, wav_paths = [], []
-for _, row in train_df.iterrows():
-    ids.append(row["ID"])
-    wav_paths.append(os.path.join(paths.train_audio_dir,
-                                  ds.train_wav_name(row["ID"])))
-for _, row in test_df.iterrows():
-    ids.append(row["ID"])
-    wav_paths.append(os.path.join(paths.test_audio_dir,
-                                  ds.test_wav_name(row["ID"])))
+train, test = ds.load_tables(paths)
+ids = train["ID"] + test["ID"]
+wav_paths = ([os.path.join(paths.train_audio_dir, ds.train_wav_name(i))
+              for i in train["ID"]]
+             + [os.path.join(paths.test_audio_dir, ds.test_wav_name(i))
+                for i in test["ID"]])
 wavs = wav_io.load_wav_batch(wav_paths, spec.expected_len)
 
 rng = np.random.default_rng(0)

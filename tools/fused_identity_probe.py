@@ -2,7 +2,7 @@
 feature graph (round-4 regression hunt).
 
 Round 3 proved fused-from-wav training bit-identical to cached-feature
-training at seeds 0-4 (RESULTS.md). The round-4 sweep on the current stack
+training at seeds 0-4. The round-4 sweep on the current stack
 (results/sweep_r4/) shows cached and fused VGG histories diverging from
 epoch 1 at the 4th decimal — i.e. the train features computed INSIDE the
 fused step no longer bit-match the precompute graph's output. This probe
@@ -66,8 +66,7 @@ def main() -> None:
     from tpu_breath.train import loop as train_loop
 
     paths = Paths(root="input")
-    train_df, _ = ds.load_frames(paths)
-    ids = list(train_df["ID"])[:args.n]
+    ids = ds.load_tables(paths)[0]["ID"][:args.n]
     wav_paths = [os.path.join(paths.train_audio_dir, ds.train_wav_name(i))
                  for i in ids]
     wavs = wav_io.load_wav_batch(wav_paths, SPEC.expected_len)
@@ -94,11 +93,8 @@ def main() -> None:
     # it computed. loop._maybe_fused_features is the exact production helper.
     cfg = type(CNN8_TRAIN)(**{**CNN8_TRAIN.__dict__, "batch_size": args.n})
     model = CNN8(num_scalar_features=SPEC.n_scalars)
-    sample = Batch(jnp.asarray(fa[:2]), jnp.asarray(sa[:2]),
-                   jnp.asarray(labels[:2]))
     state, tx, _ = train_loop.create_state(
-        model, jax.random.PRNGKey(0), cfg, steps_per_epoch=8,
-        sample_batch=sample)
+        model, jax.random.PRNGKey(0), cfg, steps_per_epoch=8)
     key = jax.random.PRNGKey(1)
     use_aug = jnp.asarray(False)  # epoch-1 semantics: augmentation off
 

@@ -1,4 +1,4 @@
-"""History-level fused==cached identity check (VERDICT r4 #1).
+"""History-level fused==cached identity check.
 
 Compares every fused_<arch>_seed<N>.jsonl in a sweep directory against its
 cached counterpart row by row on every recorded metric EXCEPT wall time

@@ -1,5 +1,4 @@
-"""Full-dataset parity sweep: the device feature graph vs the NumPy oracle
-(VERDICT r1 #4).
+"""Full-dataset parity sweep: the device feature graph vs the NumPy oracle.
 
 Runs the batched device graph over ALL 5,000 clips (train + test), then
 re-derives a random sample of clips with the per-clip oracle
@@ -39,16 +38,12 @@ def main() -> None:
 
     spec = DEFAULT_FEATURES
     paths = Paths(root=args.root)
-    train_df, test_df = ds.load_frames(paths)
-    ids, wav_paths = [], []
-    for _, row in train_df.iterrows():
-        ids.append(row["ID"])
-        wav_paths.append(os.path.join(paths.train_audio_dir,
-                                      ds.train_wav_name(row["ID"])))
-    for _, row in test_df.iterrows():
-        ids.append(row["ID"])
-        wav_paths.append(os.path.join(paths.test_audio_dir,
-                                      ds.test_wav_name(row["ID"])))
+    train, test = ds.load_tables(paths)
+    ids = train["ID"] + test["ID"]
+    wav_paths = ([os.path.join(paths.train_audio_dir, ds.train_wav_name(i))
+                  for i in train["ID"]]
+                 + [os.path.join(paths.test_audio_dir, ds.test_wav_name(i))
+                    for i in test["ID"]])
     wavs = wav_io.load_wav_batch(wav_paths, spec.expected_len)
     print(f"{len(ids)} clips decoded")
 

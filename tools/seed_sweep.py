@@ -1,4 +1,4 @@
-"""Multi-seed production sweep (VERDICT r2 #1): train CNN8/VGG at several
+"""Multi-seed production sweep: train CNN8/VGG at several
 seeds on the CURRENT feature stack, cached and/or fused, and archive each
 run's history.jsonl under results/sweep/. Re-runnable: completed
 (mode, arch, seed) runs are skipped, so a flaky-backend retry loop resumes

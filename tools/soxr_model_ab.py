@@ -1,5 +1,5 @@
 """Model-level bound on the soxr-vs-polyphase CQT resampler deviation
-(VERDICT r4 #5).
+
 
 PARITY.md §5 documents the one genuinely open parity channel: librosa 0.10's
 chroma_cens defaults to the soxr_hq 2:1 decimator inside its multirate CQT
@@ -51,7 +51,7 @@ def build_spliced_roots(base_root: str = "input") -> None:
 
     # decode every wav in store id order (train rows first, then test —
     # the order _build_feature_store writes)
-    train_df, test_df = ds.load_frames(paths)
+    train_df, test_df = ds.load_tables(paths)
     wav_paths = [os.path.join(paths.train_audio_dir, ds.train_wav_name(i))
                  for i in train_df["ID"]]
     wav_paths += [os.path.join(paths.test_audio_dir, ds.test_wav_name(i))

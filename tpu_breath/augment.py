@@ -1,7 +1,7 @@
 """On-device CutMix / MixUp as pure functions of a PRNG key.
 
 Runs *inside* the jitted train step (no host RNG, no data-loader involvement) —
-the TPU-native counterpart of reference src/augmentation.py:5-45 plus the
+the JAX counterpart of reference src/augmentation.py:5-45 plus the
 inline branch logic of src/train.py:76-89. Two reference quirks are preserved
 deliberately (documented as discrepancy D6 in SURVEY.md §2.5):
 - CutMix mixes spectrograms + labels but leaves the scalar vector alone.

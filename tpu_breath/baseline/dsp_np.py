@@ -3,7 +3,7 @@ used by the reference pipeline (reference src/precompute/process.py:25-108,
 src/precompute/methods.py:24-143).
 
 librosa itself is not available in this environment, so this module serves as
-(a) the *test oracle* against which the JAX/TPU ops are checked, and (b) the
+(a) the *test oracle* against which the JAX ops are checked, and (b) the
 CPU throughput baseline for bench.py. Where librosa delegates to SciPy
 (savgol_filter for deltas, dct, hilbert, find_peaks), we call the exact same
 SciPy functions, so those paths are bit-identical to librosa's backends. The

@@ -1,4 +1,4 @@
-"""Frozen configuration for the TPU-native breathing-phase framework.
+"""Frozen configuration for the breathing-phase framework.
 
 The reference scatters its constants across modules (see
 reference src/precompute/core.py:9-17, src/precompute/process.py:12-23,
@@ -82,7 +82,7 @@ class ModelCfg:
     in_channels: int = 9
     num_scalar_features: int = 36
     dropout_rate: float = 0.3  # CNN8 default; VGG uses 0.2 (src/model.py:93)
-    # bf16 activations with f32 params/stats is the TPU-native analogue of the
+    # bf16 activations with f32 params/stats are the analogue of the
     # reference's CUDA AMP (src/train.py:53,92).
     compute_dtype: str = "bfloat16"
 

@@ -1,10 +1,13 @@
 """CSV handling, ID<->wav mapping, the seed-42 split, and the feature store.
 
 Replaces the reference's Dataset/DataLoader layer (src/dataset.py,
-src/utils/dataloaders.py) with a TPU-appropriate design: the whole feature
-set (4k x 290KB) lives in device memory as dense arrays and batches are
-device-side gathers — no worker processes, no per-item npz reads, no
+src/utils/dataloaders.py) with an accelerator-resident design: the whole
+feature set (4k x 290KB) lives in device memory as dense arrays and batches
+are device-side gathers — no worker processes, no per-item npz reads, no
 host<->device copies inside the epoch loop.
+
+A CSV is read into a table: a dict from column name to the column's values
+as a list of strings, in file order.
 
 Two persistence formats:
 - npz parity mode: one .npz per clip with the reference's exact schema
@@ -14,12 +17,13 @@ Two persistence formats:
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
+import math
 import os
 import re
 
 import numpy as np
-import pandas as pd
 
 from tpu_breath.config import FeatureSpec, Paths
 
@@ -33,19 +37,44 @@ def test_wav_name(file_id: str) -> str:
     return file_id if file_id.endswith(".wav") else file_id + ".wav"
 
 
-def load_frames(paths: Paths) -> tuple[pd.DataFrame, pd.DataFrame]:
-    return pd.read_csv(paths.train_csv), pd.read_csv(paths.test_csv)
+Table = dict[str, list[str]]
 
 
-def split_train_val(train_df: pd.DataFrame, test_size: float = 0.20,
-                    seed: int = 42) -> tuple[pd.DataFrame, pd.DataFrame]:
-    """The reference's exact split: sklearn train_test_split(shuffle=True,
-    random_state=42), NOT stratified (src/utils/dataloaders.py:11;
-    the paper's stratification claim is discrepancy D4)."""
-    from sklearn.model_selection import train_test_split
-    tr, va = train_test_split(train_df, test_size=test_size, shuffle=True,
-                              random_state=seed)
-    return tr, va
+def read_table(path: str) -> Table:
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        columns = list(zip(*reader)) or [()] * len(header)
+    return {name: list(col) for name, col in zip(header, columns)}
+
+
+def write_table(table: Table, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(table)
+        writer.writerows(zip(*table.values()))
+
+
+def load_tables(paths: Paths) -> tuple[Table, Table]:
+    return read_table(paths.train_csv), read_table(paths.test_csv)
+
+
+def take_rows(table: Table, rows) -> Table:
+    return {k: [v[i] for i in rows] for k, v in table.items()}
+
+
+def split_train_val(table: Table, test_size: float = 0.20, seed: int = 42
+                    ) -> tuple[Table, Table]:
+    """The reference's exact split: sklearn's train_test_split(shuffle=True,
+    random_state=42), NOT stratified (src/utils/dataloaders.py:11; the
+    paper's stratification claim is discrepancy D4). Reproduced in numpy:
+    val is the first ceil(test_size * n) rows of RandomState(seed)'s
+    permutation and train the rest, each in permutation order."""
+    n = len(next(iter(table.values())))
+    perm = np.random.RandomState(seed).permutation(n)
+    n_val = math.ceil(test_size * n)
+    return take_rows(table, perm[n_val:]), take_rows(table, perm[:n_val])
 
 
 def labels_from_targets(targets) -> np.ndarray:

@@ -3,7 +3,8 @@
 The default training path holds the whole feature set in device memory (it is
 only ~1.5 GB for this competition). This module is the general path the
 reference's DataLoader stack (src/utils/dataloaders.py: worker processes,
-pinned memory, prefetch_factor) maps to when the dataset outgrows HBM:
+pinned memory, prefetch_factor) maps to when the dataset outgrows device
+memory:
 
 - batch_indices(): the epoch's shuffled, drop_last-batched index stream
   (keyed RNG, reproducible).

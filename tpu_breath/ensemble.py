@@ -8,18 +8,15 @@ lives on device once.
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pandas as pd
 
+from tpu_breath.data import dataset as ds
 from tpu_breath.models import registry
 from tpu_breath.train import checkpoint as ckpt_lib
 from tpu_breath.train.loop import TrainState, create_state, make_eval_step
 from tpu_breath.config import TrainCfg
-from tpu_breath.augment import Batch
 
 
 def softmax_weights(val_scores, use_softmax: bool = True) -> np.ndarray:
@@ -34,8 +31,7 @@ def predict_probs(model, state: TrainState, feats: np.ndarray,
                   scals: np.ndarray, batch_size: int = 1024) -> np.ndarray:
     """Sigmoid probabilities for one model over the whole set."""
     eval_step = make_eval_step(model)
-    from tpu_breath.utils import transfer
-    f = transfer.device_put_chunked(feats)
+    f = jnp.asarray(feats)
     s = jnp.asarray(scals)
     n = feats.shape[0]
     out = np.empty(n, np.float32)
@@ -49,13 +45,12 @@ def predict_probs(model, state: TrainState, feats: np.ndarray,
     return 1.0 / (1.0 + np.exp(-out))
 
 
-def load_model_state(ckpt_path: str, arch: str, num_scalar_features: int,
-                     sample_batch: Batch):
+def load_model_state(ckpt_path: str, arch: str, num_scalar_features: int):
     """Arch registry + checkpoint restore (analogue of
     src/utils/ensemble.py:7-18)."""
     model = registry.build(arch, num_scalar_features)
     state, _, _ = create_state(model, jax.random.PRNGKey(0), TrainCfg(),
-                               steps_per_epoch=1, sample_batch=sample_batch)
+                               steps_per_epoch=1)
     state = ckpt_lib.restore(ckpt_path, state)
     return model, state
 
@@ -64,12 +59,10 @@ def weighted_ensemble(ckpt_paths, archs, val_scores, feats, scals,
                       num_scalar_features: int, use_softmax: bool = True,
                       batch_size: int = 1024) -> np.ndarray:
     assert len(ckpt_paths) == len(archs) == len(val_scores)
-    sample = Batch(jnp.asarray(feats[:2]), jnp.asarray(scals[:2]),
-                   jnp.zeros(2, jnp.float32))
     weights = softmax_weights(val_scores, use_softmax)
     probs = np.zeros(feats.shape[0], np.float64)
     for path, arch, w in zip(ckpt_paths, archs, weights):
-        model, state = load_model_state(path, arch, num_scalar_features, sample)
+        model, state = load_model_state(path, arch, num_scalar_features)
         probs += w * predict_probs(model, state, feats, scals, batch_size)
     return probs
 
@@ -92,8 +85,7 @@ def serve_from_wav(ckpt_paths, archs, val_scores, wavs: np.ndarray,
     the weighted sigmoid blend fused into a single device dispatch per
     micro-batch). This is the serving path the reference lacks — its
     per-clip story is ~20 sequential librosa calls plus two torch models
-    (src/precompute/process.py:25 + src/utils/ensemble.py:49); here the
-    measured device latency is 6.4 ms/clip at batch 1 (RESULTS.md).
+    (src/precompute/process.py:25 + src/utils/ensemble.py:49).
 
     micro_batch fixes the compiled shape; the tail is padded and dropped.
     """
@@ -101,21 +93,19 @@ def serve_from_wav(ckpt_paths, archs, val_scores, wavs: np.ndarray,
     from tpu_breath.features import extract_features
 
     spec = spec or DEFAULT_FEATURES
-    f0, s0 = jax.jit(lambda w: extract_features(w, spec))(
-        jnp.asarray(wavs[:1]))
-    sample = Batch(f0, s0, jnp.zeros(1, jnp.float32))
-    loaded = [load_model_state(p, a, spec.n_scalars, sample)
+    loaded = [load_model_state(p, a, spec.n_scalars)
               for p, a in zip(ckpt_paths, archs)]
+    models = [m for m, _ in loaded]
+    states = jax.device_put([st for _, st in loaded])
     weights = softmax_weights(val_scores, use_softmax)
 
     @jax.jit
-    def serve(y):
+    def serve(states, y):
         f, s = extract_features(y, spec)
         p = jnp.zeros(y.shape[0], jnp.float32)
-        for (model, state), w in zip(loaded, weights):
-            logits = model.apply({"params": state.params,
-                                  "batch_stats": state.batch_stats},
-                                 f, s, train=False)
+        for model, state, w in zip(models, states, weights):
+            logits, _ = model.apply({"params": state.params,
+                                     "batch_stats": state.batch_stats}, f, s)
             p = p + float(w) * jax.nn.sigmoid(logits)
         return p
 
@@ -127,17 +117,16 @@ def serve_from_wav(ckpt_paths, archs, val_scores, wavs: np.ndarray,
         x = wavs[lo:hi]
         if hi - lo < micro_batch:
             x = np.pad(x, ((0, micro_batch - (hi - lo)), (0, 0)))
-        pending.append((lo, hi, serve(jnp.asarray(x))))
+        pending.append((lo, hi, serve(states, jnp.asarray(x))))
     for lo, hi, p in pending:
         out[lo:hi] = np.asarray(p)[: hi - lo]
     return out
 
 
 def write_submission(ids, probs, out_path: str,
-                     threshold: float = 0.5) -> pd.DataFrame:
+                     threshold: float = 0.5) -> ds.Table:
     """probs > 0.5 -> 'E' else 'I' (src/scripts.py:62-69)."""
-    labels = ["E" if p > threshold else "I" for p in probs]
-    df = pd.DataFrame({"ID": list(ids), "Target": labels})
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    df.to_csv(out_path, index=False)
-    return df
+    table = {"ID": [str(i) for i in ids],
+             "Target": ["E" if p > threshold else "I" for p in probs]}
+    ds.write_table(table, out_path)
+    return table

@@ -1,5 +1,5 @@
-"""Architecture registry (the TPU-side analogue of the reference's
-arch-string dispatch in src/utils/ensemble.py:7-18)."""
+"""Architecture registry (the analogue of the reference's arch-string
+dispatch in src/utils/ensemble.py:7-18)."""
 from __future__ import annotations
 
 from tpu_breath.models.cnn8 import CNN8

@@ -1,7 +1,7 @@
 """MFCC, Savitzky-Golay deltas, and 2-D DCT modulation spectrum as matmuls.
 
 All three are *linear* operators at fixed sizes, so each becomes one constant
-matrix applied on the MXU:
+matrix product:
 - delta/delta2: the savgol_filter(width=9, mode='interp') operator, including
   its polynomial-fit edge handling, is materialized by pushing an identity
   matrix through scipy once at trace time (bit-identical to librosa's backend,

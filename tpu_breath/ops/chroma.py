@@ -64,16 +64,15 @@ def piptrack(S: jax.Array, sr: float, n_fft: int, fmin: float = 150.0,
 
 def _masked_median(values: jax.Array, mask: jax.Array) -> jax.Array:
     """np.median over values[mask] (0.0 if empty), sort-free via radix
-    select (ops/select.py): XLA's TPU sort of the [F*T] magnitude array
-    cost more than the rest of the tuning estimate combined."""
+    select (ops/select.py)."""
     from tpu_breath.ops import select
     return select.masked_median(values, mask)
 
 
 def hist_compare_reduce(flat_r: jax.Array, flat_sel: jax.Array,
                         edges: jax.Array) -> jax.Array:
-    """The production histogram stage: compare-and-reduce (scatter-add is
-    slow on TPU) against np.histogram's exact (f32-adjusted) bin edges —
+    """The production histogram stage: compare-and-reduce (no scatter-add)
+    against np.histogram's exact (f32-adjusted) bin edges —
     bin b counts residuals in [edge_b, edge_{b+1}), identical to
     searchsorted."""
     ge = flat_r[None, :] >= edges[:, None]  # [n_bins+1, N]
@@ -138,8 +137,8 @@ def estimate_tuning_index(S: jax.Array, sr: float, n_fft: int,
     bases in ops/cqt.py) instead of rebuilding kernels in-graph.
 
     hist(flat_residual, flat_sel, edges) -> counts[n_bins] is pluggable so
-    A/B candidates (tools/hist_ab.py) run through THIS function — the rest
-    of the tuning chain is never duplicated."""
+    A/B candidates run through THIS function — the rest of the tuning chain
+    is never duplicated."""
     from tpu_breath.ops import dd
     pitches, mags = _piptrack_band(S, sr, n_fft)
     pitch_mask = pitches > 0

@@ -147,9 +147,8 @@ def _vqt_time_kernels(sr: int, fmin: float, bins_per_octave: int,
 
     C[octave][k, t] = sum_f basis[k,f] D[t,f] = sum_l frames[t,l] K[k,l],
     so each octave's response is ONE batched [T, n_fft] x [n_fft, 2*bpo]
-    GEMM instead of a full 512-pt STFT plus four [bpo, F] projections —
-    measured 18% faster end-to-end on the CQT (tools/graph_ab.py), with the
-    f64-exact kernel replacing two separately-rounded f32 constants.
+    GEMM instead of a full 512-pt STFT plus four [bpo, F] projections, with
+    the f64-exact kernel replacing two separately-rounded f32 constants.
 
     Returns ([n_tunings, 2*bpo, n_fft] packed (re | im), n_fft, fir_taps)."""
     n_t = int(np.ceil(1.0 / _TUNING_RESOLUTION))
@@ -293,10 +292,12 @@ def chroma_cens(y: jax.Array, sr: int, hop_length: int, fmin: float,
                                 n_fft=2048, bins_per_octave=bins_per_octave)
     for _ in range(y.ndim - 1):
         tune_fn = jax.vmap(tune_fn)
-    tuning_idx = tune_fn(s_pip)
+    with jax.named_scope("tuning"):
+        tuning_idx = tune_fn(s_pip)
     n_bins = n_octaves * bins_per_octave
-    C = cqt_mag_multirate(y, tuning_idx, sr, hop_length, fmin,
-                          bins_per_octave, n_octaves)
+    with jax.named_scope("cqt"):
+        C = cqt_mag_multirate(y, tuning_idx, sr, hop_length, fmin,
+                              bins_per_octave, n_octaves)
     # cq_to_chroma's tuning-dependent roll is round(midi(fmin_t) mod 12 *
     # n_chroma/12) = 0 for every representable tuning here (|tuning/3| < 0.5
     # semitone), so the fold matrix is a static constant.

@@ -1,12 +1,12 @@
-"""Correctly-rounded float32 division and log2 on TPU via double-float
+"""Correctly-rounded float32 division and log2 via double-float
 (two-float32) arithmetic.
 
 Why this exists: the tuning-estimation histogram (ops/chroma.py) takes an
 argmax over ~100 near-tied bins of residuals r = mod(36*log2(pitch/27.5), 1).
 On breathing-noise clips the modes are tied within +/-1 count, so ANY
 rounding difference between the device's transcendentals and the host's
-flips the argmax — TPU's native f32 log2/divide are only ~1-2 ulp accurate
-and differ from numpy's, which flipped the estimated tuning on ~50% of
+flips the argmax — a device's native f32 log2/divide that is ~1-2 ulp
+accurate differs from numpy's, and flipped the estimated tuning on ~50% of
 clips (PARITY.md). With log2/divide computed here to double-float accuracy
 (~1e-14 relative) and rounded once to f32, the device bit-matches an oracle
 that computes the same quantities in float64 and rounds to f32 — the only
@@ -14,8 +14,9 @@ remaining flips come from |STFT| magnitude noise between the matmul-DFT and
 the host FFT, which measurement shows is rare.
 
 Error-free transforms (two_sum, Veltkamp split / two_prod) rely on IEEE
-round-to-nearest f32 add/mul without hidden FMA contraction; XLA's HLO
-semantics keep separate mul/add ops unfused, so these identities hold.
+round-to-nearest f32 add/mul without hidden FMA contraction. XLA keeps the
+separate mul/add ops of the HLO unfused on the CPU and, as compiled for the
+H100, on the GPU: tests/test_dd.py runs every contract on both.
 """
 from __future__ import annotations
 
@@ -131,7 +132,7 @@ def matmul_dd_pair(a: jax.Array, b: jax.Array, chunk: int = 64,
     (PARITY.md; reference channel recipe src/precompute/methods.py:136-140).
 
     Method: the contraction is split into `chunk`-wide slices; each slice is
-    one MXU GEMM at HIGHEST precision (near-exact products, and within-slice
+    one GEMM at HIGHEST precision (near-exact products, and within-slice
     accumulation error is bounded by the slice's tiny |term| sum), and slices
     are accumulated across the scan in double-float (error-free two_sum), so
     cross-slice accumulation is exact. Measured error vs a float64 host GEMM:
@@ -142,12 +143,11 @@ def matmul_dd_pair(a: jax.Array, b: jax.Array, chunk: int = 64,
     error back in, so the pair approximates a @ b64 rather than a @ f32(b64)
     (the tail product is ~3e-7 of the result; its own rounding is ~1e-14).
 
-    chunk=64 is the measured sweet spot (tools/cr_width_ab.py, on-chip): the
-    error floor is the MXU's per-product rounding, IDENTICAL at widths
-    8/32/64 (|S| max 3.8e-6, tuning flips 0/500), while each scan step
-    round-trips the (h, l) carries through HBM — width 64 is 2.2x faster
-    than 8. Width 128 grows the within-slice f32 sum error 1.5x for only
-    14% more speed, so 64 stays the default."""
+    chunk=64: the error floor is the per-product rounding, identical at
+    widths 8/32/64 (|S| max 3.8e-6, tuning flips 0/500), while each scan
+    step round-trips the (h, l) carries through device memory, so wider
+    slices mean fewer steps. Width 128 grows the within-slice f32 sum error
+    1.5x."""
     k = a.shape[-1]
     if b.shape[0] != k:
         raise ValueError(f"contraction mismatch: {a.shape} @ {b.shape}")
@@ -171,8 +171,9 @@ def matmul_dd_pair(a: jax.Array, b: jax.Array, chunk: int = 64,
 
     zeros = jnp.zeros(out_shape, jnp.float32)
     if b_lo is not None:
-        # DEFAULT (single bf16 pass) suffices: the tail product is ~3e-7 of
-        # the result, so its own ~4e-3 relative rounding lands at ~1e-9.
+        # DEFAULT precision suffices (TF32 on the H100, ~5e-4 relative): the
+        # tail product is ~3e-7 of the result, so its own rounding lands
+        # below ~1e-10.
         tail = jnp.matmul(a[..., :k], b_lo, precision=lax.Precision.DEFAULT)
         init = (zeros, tail)
     else:

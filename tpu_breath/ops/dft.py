@@ -1,8 +1,8 @@
-"""Fourier transforms as MXU matmuls.
+"""Fourier transforms as matmuls.
 
-XLA:TPU on this backend implements no FFT primitive at all (jnp.fft.* raises
-UNIMPLEMENTED), and even where it exists, small fixed-size DFTs map better to
-the 128x128 systolic array as dense matmuls. So:
+The feature graph was first built for a backend with no FFT primitive, so
+every transform here is a dense matmul against constant DFT matrices
+(whether cuFFT beats them on the GPU is an open item in ROADMAP.md):
 
 - n_fft 512 / 2048 STFTs: direct real-DFT matmul with [n_fft, n_fft//2+1]
   cosine/sine constant matrices (built once at trace time).
@@ -10,9 +10,8 @@ the 128x128 systolic array as dense matmuls. So:
   autocorrelation) transforms: two-stage Cooley-Tukey with the two factors'
   DFTs done as matmuls (16000 = 125 x 128, 32768 = 256 x 128).
 
-Complex values are carried as explicit (re, im) float32 pairs: complex matmul
-support is unreliable on this backend and the pair form lets every product run
-on the MXU.
+Complex values are carried as explicit (re, im) float32 pairs, so every
+product is a real matmul.
 
 Replaces the np.fft/scipy FFT usage inside librosa that the reference leans on
 (reference src/precompute/process.py:32-78, src/precompute/methods.py:72-112).
@@ -26,7 +25,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# Feature extraction needs f32-accurate matmuls; DEFAULT on TPU is bf16 passes.
+# Feature extraction needs f32-accurate matmuls; DEFAULT precision may use
+# TF32 (H100) or bf16 passes.
 MM_PRECISION = lax.Precision.HIGHEST
 
 
@@ -48,7 +48,7 @@ def rdft(x: jax.Array, n: int | None = None) -> tuple[jax.Array, jax.Array]:
 
     Large power-of-two sizes go through the two-stage Cooley-Tukey path
     (~3.5x fewer FLOPs than the direct [n, n//2+1] product); small sizes stay
-    a single dense matmul, which the MXU prefers."""
+    a single dense matmul."""
     if n is None:
         n = x.shape[-1]
     if x.shape[-1] < n:

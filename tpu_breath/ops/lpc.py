@@ -1,6 +1,6 @@
 """Burg-method LPC as a fixed-trip-count JAX recursion, vmapped over frames.
 
-TPU-native replacement for the reference's per-frame librosa.lpc loop
+Batched replacement for the reference's per-frame librosa.lpc loop
 (reference src/precompute/methods.py:116-134): the Burg order recursion is a
 12-iteration fori_loop with masked dot products over fixed-length buffers
 (XLA requires static shapes; librosa's shrinking slices become index masks),

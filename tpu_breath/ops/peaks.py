@@ -34,8 +34,7 @@ def _fill_from_marks(vals: jax.Array, marks: jax.Array,
                      reverse: bool = False) -> jax.Array:
     """Propagate the value at each marked position across the following
     (or preceding, reverse=True) unmarked positions — a segmented fill as a
-    log-depth associative scan over (value, seen) pairs. Gather-free: a
-    16000-wide dynamic gather costs ~25x this on the TPU backend."""
+    log-depth associative scan over (value, seen) pairs, gather-free."""
     def comb(a, b):
         av, af = a
         bv, bf = b
@@ -99,8 +98,7 @@ def find_peaks_stats(x: jax.Array, height: jax.Array, distance: int,
     argmax-and-suppress rounds over the full signal — each round's global
     max among alive candidates IS the next peak scipy keeps (everything
     skipped between two kept peaks lies in a kept peak's window). ~12
-    parallel-reduce rounds replace a k_max-step sequential scan (70x wall
-    time on the TPU backend).
+    parallel-reduce rounds replace a k_max-step sequential scan.
 
     Slow path (small distance): top-k_max candidates by height, k_max-step
     boolean suppression scan (k_max=2048 covers real envelopes; a candidate
@@ -147,43 +145,9 @@ def find_peaks_stats(x: jax.Array, height: jax.Array, distance: int,
     return _stats(kept, heights, x.dtype)
 
 
-def find_peaks_stats_batched(x: jax.Array, height: jax.Array, distance: int,
-                             use_pallas: bool | None = None):
-    """Batched find_peaks_stats: x[..., n], height[...] -> three [...] arrays.
-
-    use_pallas=True routes the greedy suppression rounds through the
-    VMEM-resident Pallas kernel (ops/pallas/peaks_kernel.py). It is
-    parity-exact (tests/test_pallas_peaks.py) but measured SLOWER than the
-    XLA loop on the v5e backend in every layout tried (per-clip grid 56 ms
-    vs 46, batched-block 257 ms vs 46, per 2,048 clips) — a 12x-unrolled
-    max microbenchmark showed both paths sit on the same per-chunk graph
-    overhead floor, so VMEM residency buys nothing here (RESULTS.md round-2
-    log). Default stays XLA; the kernel ships as a verified alternative."""
-    n = x.shape[-1]
-    rounds = n // max(distance, 1) + 2
-    if use_pallas is None:
-        use_pallas = False
-    if not use_pallas or distance <= 1 or rounds > 256:
-        fn = find_peaks_stats
-        for _ in range(x.ndim - 1):
-            fn = jax.vmap(fn, in_axes=(0, 0, None))
-        return fn(x, height, distance)
-    from tpu_breath.ops.pallas.peaks_kernel import suppress_peaks_pallas
-    lead = x.shape[:-1]
-    xf = x.reshape(-1, n).astype(jnp.float32)
-    hf = jnp.broadcast_to(height, lead).reshape(-1)
-    lm = jax.vmap(local_maxima)(xf)
-    scores = jnp.where(lm & (xf >= hf[:, None]), xf, -jnp.inf)
-    vals, kept = suppress_peaks_pallas(scores, distance, rounds)
-    n_pk = jnp.sum(kept, axis=-1)
-    kh = jnp.where(kept, vals, 0.0)
-    mean_h = jnp.where(n_pk > 0,
-                       jnp.sum(kh, axis=-1) / jnp.maximum(n_pk, 1), 0.0)
-    var_h = jnp.where(
-        n_pk > 0,
-        jnp.sum(jnp.where(kept, (vals - mean_h[..., None]) ** 2, 0.0),
-                axis=-1) / jnp.maximum(n_pk, 1),
-        0.0)
-    std_h = jnp.where(n_pk > 1, jnp.sqrt(var_h), 0.0)
-    return (n_pk.astype(x.dtype).reshape(lead),
-            mean_h.reshape(lead), std_h.reshape(lead))
+def find_peaks_stats_batched(x: jax.Array, height: jax.Array, distance: int):
+    """Batched find_peaks_stats: x[..., n], height[...] -> three [...] arrays."""
+    fn = find_peaks_stats
+    for _ in range(x.ndim - 1):
+        fn = jax.vmap(fn, in_axes=(0, 0, None))
+    return fn(x, height, distance)

@@ -4,7 +4,7 @@ Replaces librosa.onset.onset_strength / librosa.feature.tempogram as used by
 the reference (src/precompute/process.py:74-78). The per-frame local
 autocorrelation is a 1024-point zero-padded power spectrum computed with the
 matmul DFT, followed by an inverse-cosine matmul that folds in the 1/N and
-hermitian weights — two MXU products per clip instead of librosa's per-frame
+hermitian weights — two matmuls per clip instead of librosa's per-frame
 FFT loop.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The 36-dimensional scalar descriptor vector (JAX, batched).
 
-TPU-native replacement for reference src/precompute/methods.py:48-114: every
+Batched replacement for reference src/precompute/methods.py:48-114: every
 librosa/scipy descriptor re-expressed as static-shape batched ops — framing
 as gathers, spectral moments as masked reductions, the Hilbert envelope via
 the matmul FFT (ops/dft.py), find_peaks via ops/peaks.py, percentiles/medians
@@ -154,9 +154,9 @@ def _row_sum_stable(x: jax.Array) -> jax.Array:
     compiled bit-stably in every context on both backends, so the fix is
     to express the long sum as two short ones: a static reshape to
     [..., N/128, 128] pins the 128-element partial-sum association in the
-    HLO itself, leaving XLA only short reduces to schedule. (An MXU dot
-    against an opaque ones vector also pins TPU, but is 1-ulp
-    context-unstable on the CPU backend used by the virtual-mesh tests.)"""
+    HLO itself, leaving XLA only short reduces to schedule. (A dot against
+    an opaque ones vector is 1-ulp context-unstable on the CPU backend used
+    by the virtual-mesh tests.)"""
     n = x.shape[-1]
     if n <= _STABLE_SUM_MAX:
         return jnp.sum(x, axis=-1)
@@ -252,7 +252,9 @@ def extract_scalars(y: jax.Array, sr: int = 16_000, hop_length: int = 256,
     env = dft.hilbert_envelope(y)
     em, es = _mstd(env)
     feats += [em, es, em / (es + 1e-8)]
-    n_pk, mean_pk, std_pk = peaks.find_peaks_stats_batched(env, em, sr // 10)
+    with jax.named_scope("peak_scan"):
+        n_pk, mean_pk, std_pk = peaks.find_peaks_stats_batched(env, em,
+                                                               sr // 10)
     feats += [n_pk, mean_pk, std_pk]
 
     if stft512_mag is None:

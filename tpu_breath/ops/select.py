@@ -1,9 +1,9 @@
 """Exact order statistics without sorting (radix select).
 
-XLA's TPU sort is the single most expensive primitive in this pipeline's
-scalar/tuning paths (a [16000] f32 sort costs more than the rest of the
-scalar graph combined), yet every use only needs one or two order
-statistics. Radix select gets them exactly: map f32 to order-preserving
+A sort was the most expensive primitive of this pipeline's scalar/tuning
+paths on the backend it was first built for, yet every use only needs one
+or two order statistics (whether jnp.sort wins on the GPU is an open item in
+ROADMAP.md). Radix select gets them exactly: map f32 to order-preserving
 uint32 (sign-flip trick), then 4 byte-passes of 256-bin compare-reduce
 counts narrow the rank to a single key. All passes are fixed-shape
 vectorized reductions — no data-dependent control flow, vmap-friendly.
@@ -42,15 +42,14 @@ def rank_select_u32(keys: jax.Array, rank: jax.Array,
     count decides whether the answer has that bit set — 32 compare+sum
     passes over the data. (A 256-bin-per-byte histogram built as 256
     separate compare-reduces costs 32x this and loses to the sort it
-    replaces; measured on-chip round 2.)
+    replaces.)
 
     bits>1 descends a 2^bits-way radix tree in 32/bits steps; each step
     builds its in-prefix bucket histogram as ONE fused one-hot reduction
     (one read of the keys producing 2^bits counts), betting that XLA fuses
-    the [n, W] one-hot into the pass — cutting HBM traffic over the keys
+    the [n, W] one-hot into the pass — cutting memory traffic over the keys
     from 32 reads to 32/bits. The result is bit-identical to bits=1 (pure
-    integer logic; asserted in tests). Shipped default decided by the
-    on-chip A/B in tools/select_ab.py."""
+    integer logic; asserted in tests)."""
     if 32 % bits:
         raise ValueError(f"bits ({bits}) must divide 32")
     rank = rank.astype(jnp.int32)

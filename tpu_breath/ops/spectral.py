@@ -1,6 +1,6 @@
 """Batched STFT / mel spectrogram ops (JAX, matmul-DFT based).
 
-TPU-native replacement for the librosa spectral stack the reference uses
+Batched replacement for the librosa spectral stack the reference uses
 (reference src/precompute/process.py:32-41,51,59-62). Everything is batched
 over clips and static-shaped; filterbank/DFT matrices are trace-time
 constants shared with the NumPy oracle so the two paths can only diverge in
@@ -44,7 +44,7 @@ def frame_signal(y: jax.Array, frame_length: int, hop_length: int,
     When hop divides the frame length (every STFT here: 512/256, 2048/256),
     framing is hop-sized blocks re-viewed with k overlapping shifts — pure
     reshape + slice + concat, ZERO gathers. The general case falls back to
-    an index gather, which XLA:TPU lowers ~10x slower."""
+    an index gather."""
     g = int(np.gcd(frame_length, hop_length))
     if g >= 8:  # lane-friendly block width; g==1 cases keep the gather
         k = frame_length // g       # blocks per frame
@@ -202,10 +202,10 @@ def stft_mag_cr(y: jax.Array, n_fft: int, hop_length: int,
 def stft_mag_dd(y: jax.Array, n_fft: int, hop_length: int,
                 chunk: int = 64) -> jax.Array:
     """|STFT| via the compensated GEMM (dd.matmul_dd): ~100x lower absolute
-    error than the MXU block-DFT, for channels whose normalization amplifies
-    matmul rounding past the parity budget (the gammatone z-score, PARITY.md).
-    Layout [..., F, T] like stft_mag. Superseded by stft_mag_cr (round-once
-    magnitude) on the production graph; kept for the Pallas-kernel A/B."""
+    error than the plain block-DFT, for channels whose normalization
+    amplifies matmul rounding past the parity budget (the gammatone z-score,
+    PARITY.md). Layout [..., F, T] like stft_mag. Superseded by stft_mag_cr
+    (round-once magnitude) on the production graph."""
     from tpu_breath.ops import dd
     n = y.shape[-1]
     n_frames = 1 + n // hop_length

@@ -4,12 +4,13 @@ The reference is single-process/single-device with no distributed machinery
 (SURVEY.md §2.4); here data parallelism is a first-class property of the
 program: one 1-D ("data",) mesh, batches sharded along it, parameters and
 optimizer state replicated, and gradient reduction left to XLA-inserted
-psums over ICI. The same jitted train step runs unchanged on 1 chip, an
-8-device CPU simulation, or a pod slice — only the mesh differs.
+all-reduces (NCCL between GPUs). The same jitted train step runs unchanged
+on 1 GPU, an 8-device CPU simulation, or several GPUs on several hosts —
+only the mesh differs. The mesh is 1-D: the cards of one host are joined
+all to all, so no axis needs a topology-aware shape.
 
 Multi-host entry goes through jax.distributed.initialize() (initialize()
-below) — the JAX runtime over ICI/DCN is the communication backend; there is
-no NCCL/MPI analogue to hand-write.
+below); there is no NCCL/MPI code to hand-write.
 """
 from __future__ import annotations
 

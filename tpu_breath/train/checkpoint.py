@@ -1,9 +1,13 @@
-"""Orbax checkpointing with true resume.
+"""Checkpointing with true resume.
 
 The reference only *saves* on improvement (torch.save of model/opt/sched
 state, src/train.py:152-164) and cannot resume a training run; here the full
-TrainState (params, batch_stats, optimizer state, step) plus metadata goes
-through Orbax, and restore_latest() continues an interrupted run.
+TrainState (params, batch_stats, optimizer state, step) goes to one .npz
+keyed by each leaf's pytree path, and restore_latest() continues an
+interrupted run.
+
+Layout: <save_dir>/best_epochNNN/state.npz, then metadata.json. The metadata
+is written LAST, so a directory without it is a save that was interrupted.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import re
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
+
+_STATE = "state.npz"
 
 
 def _dir(save_dir: str, epoch: int) -> str:
@@ -21,15 +26,16 @@ def _dir(save_dir: str, epoch: int) -> str:
 
 
 def save(save_dir: str, state, epoch: int, metadata: dict) -> str:
-    os.makedirs(save_dir, exist_ok=True)
+    """Write state + metadata. Under several processes every process calls
+    this with the same path; the state is replicated, so only process 0
+    writes."""
     path = _dir(save_dir, epoch)
-    # Multi-process: every process calls save with the SAME path (Orbax's
-    # coordinated protocol — host-numpy values are written by the primary
-    # only); side files are primary-only.
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path, jax.device_get(state), force=True)
-    ckptr.wait_until_finished()
+    host_state = jax.device_get(state)
     if jax.process_index() == 0:
+        os.makedirs(path, exist_ok=True)
+        leaves = jax.tree_util.tree_flatten_with_path(host_state)[0]
+        np.savez(os.path.join(path, _STATE),
+                 **{jax.tree_util.keystr(k): np.asarray(v) for k, v in leaves})
         with open(os.path.join(path, "metadata.json"), "w") as f:
             json.dump({"epoch": epoch,
                        **{k: float(v) for k, v in metadata.items()}}, f)
@@ -55,18 +61,27 @@ def latest_checkpoint(save_dir: str) -> str | None:
 
 
 def restore(path: str, target_state):
-    """Restore a TrainState (shapes/dtypes from target_state)."""
-    ckptr = ocp.StandardCheckpointer()
-    return ckptr.restore(os.path.abspath(path), target=jax.device_get(target_state))
+    """Restore a TrainState with target_state's structure; every leaf must
+    match its target's shape and dtype."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(target_state)
+    out = []
+    with np.load(os.path.join(path, _STATE)) as data:
+        for key, like in leaves:
+            name = jax.tree_util.keystr(key)
+            v = data[name]
+            if v.shape != like.shape or v.dtype != like.dtype:
+                raise ValueError(
+                    f"{path}: {name} is {v.dtype}{list(v.shape)}, expected "
+                    f"{like.dtype}{list(like.shape)}")
+            out.append(v)
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def restore_latest(save_dir: str, target_state):
     path = latest_checkpoint(save_dir)
     if path is None:
         raise FileNotFoundError(f"no checkpoint under {save_dir}")
-    with open(os.path.join(path, "metadata.json")) as f:
-        meta = json.load(f)
-    return restore(path, target_state), int(meta["epoch"])
+    return restore(path, target_state), int(load_metadata(path)["epoch"])
 
 
 def load_metadata(path: str) -> dict:

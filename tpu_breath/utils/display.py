@@ -1,66 +1,35 @@
-"""Console status helpers (rich-based with a plain fallback) + parameter
-counting — the LX layer of the reference (src/utils/display.py:6-36)."""
+"""Console status lines and a progress counter — the LX layer of the
+reference (src/utils/display.py:6-36), in plain print."""
 from __future__ import annotations
 
-try:
-    from rich.console import Console
-    _console = Console()
-
-    def _emit(style: str, msg: str) -> None:
-        _console.print(msg, style=style)
-except Exception:  # pragma: no cover
-    def _emit(style: str, msg: str) -> None:
-        print(msg)
+import sys
+import time
 
 
 def print_start(msg):
-    _emit("bold cyan", f"▶ {msg}")
+    print(f"▶ {msg}", flush=True)
 
 
 def print_success(msg):
-    _emit("bold green", f"✔ {msg}")
+    print(f"✔ {msg}", flush=True)
 
 
 def print_warning(msg):
-    _emit("bold yellow", f"⚠ {msg}")
+    print(f"⚠ {msg}", flush=True)
 
 
 def print_error(msg):
-    _emit("bold red", f"✘ {msg}")
+    print(f"✘ {msg}", flush=True)
 
 
 def print_info(msg):
-    _emit("dim", f"· {msg}")
-
-
-def count_parameters(params) -> tuple[int, int]:
-    """Total/trainable parameter count for a flax params pytree."""
-    import jax
-    total = sum(x.size for x in jax.tree.leaves(params))
-    print_info(f"parameters: {total:,} total")
-    return total, total
-
-
-def print_epoch_summary(epoch_index: int, average_loss: float) -> None:
-    """Epoch summary block (reference src/utils/display.py:9-11)."""
-    _emit("bold blue", f"⚙ Epoch {epoch_index} Summary")
-    _emit("green", f"  mean training loss: {average_loss:.4f}")
-
-
-def print_validation_accuracy(accuracy: float, min_prob: float,
-                              max_prob: float) -> None:
-    """Validation summary (reference src/utils/display.py:13-15)."""
-    _emit("bold green", f"✔ Val Accuracy: {accuracy:.4f}")
-    _emit("dim", f"  probability range: {min_prob:.3f}-{max_prob:.3f}")
+    print(f"· {msg}", flush=True)
 
 
 def progress_bar(iterable, description: str, total: int | None = None):
     """tqdm-style iterator wrapper (reference src/utils/display.py:17-18),
     implemented without tqdm: a line-rewriting counter with rate + ETA,
     silent when stdout is not a TTY (keeps logs clean)."""
-    import sys
-    import time
-
     if total is None:
         try:
             total = len(iterable)
